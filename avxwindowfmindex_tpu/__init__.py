@@ -1,12 +1,12 @@
-"""avxwindowfmindex_tpu — a TPU-native FM-index engine.
+"""avxwindowfmindex_tpu — a batched FM-index engine in JAX.
 
 A from-scratch reimplementation of the capabilities of
 TravisWheelerLab/AvxWindowFmIndex (an AVX2/NEON-optimized FM-index for
-nucleotide and amino-acid sequences) designed TPU-first: the windowed
-BWT is stored in device-native shapes, rank is a batched gather + masked
-popcount on the VPU, backward search is a ``lax.scan`` over thousands of
-queries at once, and multi-chip scaling uses ``shard_map`` over a device
-mesh instead of OpenMP threads.
+nucleotide and amino-acid sequences) designed for an accelerator: the
+windowed BWT is stored in device-native shapes, rank is a batched
+gather + masked popcount, backward search steps thousands of queries at
+once, and multi-device scaling uses ``shard_map`` over a device mesh
+instead of OpenMP threads.
 
 Quick start::
 
@@ -96,14 +96,14 @@ def write_index_to_file(index, path: str) -> None:
 
 
 def parallel_search_count(index, kmers, num_threads: int = 0):
-    """awFmParallelSearchCount parity (threads are a no-op on TPU)."""
+    """awFmParallelSearchCount parity (threads are a no-op on device)."""
     from .parallel.api import parallel_search_count as _f
 
     return _f(index, kmers, num_threads)
 
 
 def parallel_search_locate(index, kmers, num_threads: int = 0):
-    """awFmParallelSearchLocate parity (threads are a no-op on TPU)."""
+    """awFmParallelSearchLocate parity (threads are a no-op on device)."""
     from .parallel.api import parallel_search_locate as _f
 
     return _f(index, kmers, num_threads)

@@ -22,7 +22,7 @@ class AlphabetType(enum.IntEnum):
 class ReturnCode(enum.IntEnum):
     """Status codes matching the reference's enum (AwFmIndex.h:132-138).
 
-    The TPU framework raises exceptions for hard failures, but these codes
+    This library raises exceptions for hard failures, but these codes
     are kept for API parity and for callers porting from the C library.
     """
 

@@ -5,7 +5,7 @@
  * reconstructs exactly the surface the reference consumes (struct
  * fields at AwFmCreate.c:162-196, AwFmFile.c:157-187 + 360-440,
  * AwFmSearch.c:284-315) so that the REFERENCE C SOURCES can be built
- * into a golden binary whose .awfmi output and hit lists our TPU
+ * into a golden binary whose .awfmi output and hit lists our device
  * implementation is byte-compared against (tests/test_golden_reference.py).
  *
  * Parsing and layout conventions mirror this repo's own FASTA handling

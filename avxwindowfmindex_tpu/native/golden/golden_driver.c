@@ -1,7 +1,7 @@
 /* Golden-parity driver: exercises the REFERENCE library's public API
  * (built from the read-only sources with the shims in this directory)
  * so its on-disk bytes and answers can be compared against this repo's
- * TPU implementation. See tools/golden_parity.py (build + compare CLI)
+ * JAX implementation. See tools/golden_parity.py (build + compare CLI)
  * and tests/test_golden_reference.py.
  *
  * Commands (all output line-oriented ASCII on stdout):

@@ -6,15 +6,22 @@ reference delegates to C submodules:
     AwFmCreate.c:99-100);
   - buffered FASTA parsing (FastaVector equivalent, AwFmCreate.c:166-176).
 
-The library is built on demand from native/src with g++; if a compiler
-or the sources are unavailable, callers fall back to the NumPy/Python
-implementations.
+The library is built on demand from native/src with g++ into
+native/build, under a name keyed to the source's content, the compiler
+flags and the host's architecture. A copy built for another source or
+another machine therefore never loads in place of this one's, whatever
+its file times say; a file at the keyed name that does not load is
+rebuilt once. The flags carry no ``-march=native``, so a library built
+on one x86-64 host runs on another. If a compiler or the sources are
+unavailable, callers fall back to the NumPy/Python implementations.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import Optional, Tuple
@@ -23,24 +30,60 @@ import numpy as np
 
 _NATIVE_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_NATIVE_DIR, "src", "awfm_host.cpp")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libawfm_host.so")
+_BUILD_DIR = os.path.join(_NATIVE_DIR, "build")
+_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_failed = False
 
 
-def _try_build() -> bool:
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    cmd = [
-        "g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-        _SRC, "-o", _LIB_PATH,
-    ]
+def lib_path(src: str = _SRC, build_dir: str = _BUILD_DIR) -> str:
+    """Where the library built from ``src`` on this host lives."""
+    digest = hashlib.sha256()
+    with open(src, "rb") as fh:
+        digest.update(fh.read())
+    digest.update(" ".join(_FLAGS).encode())
+    digest.update(f"{platform.system()}-{platform.machine()}".encode())
+    return os.path.join(
+        build_dir, f"libawfm_host-{digest.hexdigest()[:16]}.so"
+    )
+
+
+def _build(src: str, out: str) -> bool:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    # build beside the target, then rename: concurrent builders (test
+    # workers) never load a half-written file
+    tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        proc = subprocess.run(cmd, capture_output=True, timeout=300)
-        return proc.returncode == 0
+        proc = subprocess.run(
+            ["g++", *_FLAGS, src, "-o", tmp], capture_output=True,
+            timeout=300,
+        )
     except (OSError, subprocess.TimeoutExpired):
         return False
+    if proc.returncode != 0:
+        return False
+    os.replace(tmp, out)
+    return True
+
+
+def open_library(src: str = _SRC, build_dir: str = _BUILD_DIR):
+    """Load the library built from ``src``, building it first when the
+    keyed file is missing or does not load. None if it cannot be built."""
+    path = lib_path(src, build_dir)
+    if not os.path.exists(path) and not _build(src, path):
+        return None
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        pass
+    if not _build(src, path):
+        return None
+    try:
+        return ctypes.CDLL(path)
+    except OSError:
+        return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -48,20 +91,11 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None:
             return _lib
-        if _build_failed:
-            return None
-        if not os.path.exists(_SRC):
+        if _build_failed or not os.path.exists(_SRC):
             _build_failed = True
             return None
-        if not os.path.exists(_LIB_PATH) or (
-            os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)
-        ):
-            if not _try_build():
-                _build_failed = True
-                return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+        lib = open_library()
+        if lib is None:
             _build_failed = True
             return None
         lib.awfm_suffix_array.restype = ctypes.c_int

@@ -2,7 +2,7 @@
 
 The locate backtrace walks LF until a sampled position
 (AwFmParallelSearch.c:343-354); each masked LF step costs one block-row
-gather, the HBM-bound unit of work on TPU. This module halves the
+gather, the memory-bound unit of work. This module halves the
 gathers: a dedicated digram table whose code at BWT position p is
 
     code(p) = l1 | (l2 << 3),   l1 = BWT[p],  l2 = BWT[LF(p)]
@@ -25,9 +25,7 @@ BWT letter (no dirty collapse), and its milestone is the sum of the six
 sentinel => LF(p)=0 (AwFmSearch.c:384-386); l2 sentinel => LF2(p)=0
 (LF of the BWT's sentinel position).
 
-Row layout, 384 bytes per 256-position block, stored as 96 uint32 words
-(u32 lanes are VPU-native and gather at the u8 rate at this width —
-experiments/ab_r2_u32rank_results.txt):
+Row layout, 384 bytes per 256-position block, stored as 96 uint32 words:
 
     words [ 0, 48): 6 bit-planes x 8 words (256 positions each)
     words [48, 96): 48 uint32 word milestones (36 used: l2,l1 in 0..5)
@@ -234,8 +232,8 @@ def pair_lf_at(bt: BacktraceDigramIndex, positions, sentinel: int = 5):
 
     mask = _inclusive_mask_u32(local)
     # the low-3-plane diff serves BOTH matches (code's low bits are l1),
-    # so planes 0..2 are XOR/OR'd once, not twice — this kernel is
-    # VPU-bound and every plane pass counts
+    # so planes 0..2 are XOR/OR'd once, not twice — this kernel does
+    # more arithmetic per gather than the single-step one
     diff3 = _diff(rows, l1, range(3))
     diff6 = diff3 | _diff(rows, code, range(3, N_PLANES))
     pc2 = jnp.sum(
@@ -245,8 +243,8 @@ def pair_lf_at(bt: BacktraceDigramIndex, positions, sentinel: int = 5):
         lax.population_count(~diff3 & mask), axis=1, dtype=jnp.int32
     ).astype(jnp.uint32)
 
-    # milestone selection as two masked (B, 48) reductions — per-column
-    # slicing loops measured ~3x slower end-to-end on v5e
+    # milestone selection as two masked (B, 48) reductions, not
+    # per-column slicing loops
     ms = rows[:, MS_WORD_OFFSET:]  # baked: raw milestone + C2
     sel2 = code[:, None] == _CODE_IOTA[None, :]
     ms2c2 = jnp.sum(jnp.where(sel2, ms, jnp.uint32(0)), axis=1)

@@ -14,9 +14,9 @@ ACGT, everything touching sentinel/ambiguity is DIRTY):
     n=2: 17 symbols, 5 planes x 32 B + 16 u32 milestones = 224 -> 256 B
     n=3: 65 symbols, 7 planes x 32 B + 64 u32 milestones = 480 -> 512 B
 
-Measured on TPU v5e, row-gather cost grows far slower than row bytes
-(128 B -> 256 B costs ~1.19x), so each extra letter per step is nearly
-free bandwidth-wise; rows-per-query is the throughput lever.
+A random row gather costs far more than the bytes it moves, so each
+extra letter per step is nearly free bandwidth-wise; rows-per-query is
+the throughput lever (the row-width cost is not measured on the H100).
 
 The n-gram BWT derives from the single-letter index alone via n-1
 applications of the vectorized LF mapping — no suffix array needed.
@@ -252,20 +252,18 @@ def pair_rows_from_ngram_blocks(packed: np.ndarray, n: int) -> np.ndarray:
 
 def build_ngram_device(index: FmIndex, n: int, bias_cn=None,
                        cache_path=None) -> NgramIndex:
-    # Rows stay uint8 lanes: a u32-word variant of this table (isolated
-    # A/B +7%, experiments/ab_r2_u32rank_results.txt) measured 1.6x
-    # SLOWER end-to-end in bench.py's digram count (7.05M -> 4.3-4.5M
-    # q/s medians across two runs each way) and was reverted — the
-    # micro-bench's cache state did not transfer to the full pipeline.
+    # Rows stay uint8 lanes: a u32-word variant of this table won in
+    # isolation but lost end to end on the earlier accelerator; not
+    # measured on the H100.
     import os
 
-    # Cn pre-bias is DEFAULT ON (measured +6% digram count on top of
-    # the wsum milestones, ab_r3_mswsum_results.txt); AWFM_MS_PREBIAS=0
-    # opts out (e.g. for tables whose milestones must stay raw counts).
+    # Cn pre-bias is DEFAULT ON (one add fewer per step; not measured on
+    # the H100); AWFM_MS_PREBIAS=0 opts out (e.g. for tables whose
+    # milestones must stay raw counts).
     if bias_cn is None:
         bias_cn = os.environ.get("AWFM_MS_PREBIAS", "1") == "1"
     # cache_path: optional .npz of the FINISHED host rows — the host
-    # n-gram build is an O(n_bases) LF pass (~24 min at hg38); callers
+    # n-gram build is an O(n_bases) LF pass (tens of minutes at hg38); callers
     # that rebuild the same index repeatedly (bench.py AWFM_BENCH_CACHE)
     # key the path on every input that shapes the rows (corpus, n,
     # prebias)
@@ -337,18 +335,17 @@ _PAIR_IOTA32 = np.arange(16, dtype=np.int32)
 
 
 def _use_u32_lanes() -> bool:
-    """u32-lane kernels (recorded dead end) — see ops/_knobs.py."""
+    """u32-lane kernels (opt-in) — see ops/_knobs.py."""
     from . import _knobs
 
     return _knobs.use_u32_lanes("AWFM_NGRAM_U32")
 
 
 def _pair_rows32(ng: NgramIndex, rows):
-    """Bitcast a WHOLE gathered pair row to u32 lanes (one relayout):
+    """Bitcast a WHOLE gathered pair row to u32 lanes (one layout change):
     plane i occupies lanes [16i, 16i+16); the n_words milestones start
     at lane ms_offset/4 — so the milestone select reads the same u32
-    view instead of paying a second u8->u32 bitcast (the separate
-    bitcast showed up as +3.5 ms/step in ab_r3_stepdecomp)."""
+    view instead of paying a second u8->u32 bitcast."""
     n_words, _, n_planes, ms_offset, row_bytes = _geometry_pair(ng.n)
     lanes = (ms_offset + n_words * 4) // 4
     return lax.bitcast_convert_type(
@@ -400,7 +397,7 @@ def _pair_mask_u32(local):
 
 
 def _use_occ_dot() -> bool:
-    """MXU occurrence reduce (recorded dead end) — see ops/_knobs.py."""
+    """Matmul occurrence reduce (opt-in) — see ops/_knobs.py."""
     from . import _knobs
 
     return _knobs.use_occ_dot()
@@ -421,7 +418,7 @@ def _occ_dot_ones(width: int):
 
 
 def occ_pair_dot(masked_s, masked_e):
-    """(occ_s, occ_e) int32 via one MXU matmul over the concatenated
+    """(occ_s, occ_e) int32 via one int8 matmul over the concatenated
     masked match bytes (each (B, W) uint8)."""
     w = masked_s.shape[1]
     pc = lax.population_count(jnp.concatenate([masked_s, masked_e], axis=1))
@@ -660,13 +657,10 @@ def ngram_backward_step_pair_routed(ng: NgramIndex, start, end, bad,
     the whole extension loop. ``words_pk`` carries EVERY remaining
     step's word value packed vbits apiece (this step reads bits
     [vbits*step_idx, vbits*(step_idx+1))): the letters ride the routing
-    sort instead of being gathered per step through ``orig`` — a (B,)
-    u8 payload gather measured ~35 ms at 4M rows, ~0.7x the entire mono
-    step (ab_r4_routed_kernels R0/R4), while a fourth sort operand is
-    ~free (arity-5 unstable sorts time like arity-1). The first
-    integration restored per step and sorted five payload arrays
-    stably; those sorts ate the whole routed-gather win (mono 50.5 vs
-    routed 38.7 M rows/s).
+    sort instead of being gathered per step through ``orig``: a per-step
+    payload gather cost most of a whole mono step, while one more sort
+    operand cost little. Restoring order per step, with stable sorts
+    of five payload arrays, ate the whole routed-gather win.
 
     Exactness: rows whose slab run overflowed the plan's cap come back
     covered=False with garbage content; they are OR'd into ``bad`` and

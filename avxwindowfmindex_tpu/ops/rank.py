@@ -6,9 +6,9 @@ popcount (AwFmOccurrence.c:8-135, AwFmSimdConfig.c:89-114):
     rank(l, pos) = milestones[pos/256, l]
                  + popcount_inclusive(match_bits(block, l), pos%256)
 
-The TPU formulation keeps identical math over the fused uint8 block
-layout (models/index.py): ONE 128-lane row gather per position, then
-pure VPU work on uint8 lanes:
+This formulation keeps identical math over the fused uint8 block
+layout (models/index.py): ONE 128-byte row gather per position, then
+elementwise work on uint8 lanes:
 
     match_bytes = ~((p0 ^ c0) | (p1 ^ c1) | ...)       # code equality
     count       = sum(population_count(match & incl_mask))
@@ -20,8 +20,9 @@ mask is INCLUSIVE of the query position, matching AwFmSimdConfig.c:91.
 
 Every per-query scalar (code mask, milestone, inverse letter map) is
 computed with arithmetic one-hot selects rather than gathers or
-take_along_axis — on TPU those lower to slow per-row dynamic slices,
-measured at several ms per 512K batch, while the selects are free.
+take_along_axis: small-table gathers were slow per-row dynamic slices
+on the accelerator this was first tuned on. Whether the selects still
+win on the H100 is not measured (ROADMAP A4).
 
 All functions take the DeviceIndex pytree and are shape-polymorphic over
 the batch dimension; they are traced inside the jitted loops in
@@ -42,11 +43,8 @@ _LANE_IOTA8 = np.arange(8, dtype=np.int32)  # u32 lanes per 256-bit plane
 _LANE_IOTA16 = np.arange(16, dtype=np.int32)  # u32 lanes per 512-bit plane
 
 
-import os
-
-
 def _use_u32_lanes() -> bool:
-    """u32-lane kernels (recorded dead end) — see ops/_knobs.py."""
+    """u32-lane kernels (opt-in) — see ops/_knobs.py."""
     from . import _knobs
 
     return _knobs.use_u32_lanes("AWFM_RANK_U32")
@@ -116,7 +114,8 @@ def _gather_rows(dev, positions):
     """Fetch the fused block rows for a batch of positions.
 
     Returns (rows, local): rows (B, row_bytes) uint8, local (B,) int32.
-    This row gather is the HBM-bound op; everything else is VPU-cheap.
+    This row gather is the memory-bound op; everything else is cheap
+    elementwise work.
     """
     blk = (positions // POSITIONS_PER_BLOCK).astype(jnp.int32)
     local = (positions % POSITIONS_PER_BLOCK).astype(jnp.int32)
@@ -181,7 +180,7 @@ def _use_ms_wsum() -> bool:
 
 def _milestone_wsum(section, letter_indices, n_words):
     """Masked weighted-byte-sum milestone over the raw u8 section —
-    no bitcast relayout, no per-word column selects; u32 accumulation
+    no bitcast layout change, no per-word column selects; u32 accumulation
     wraps mod 2^32, exact for a stored u32."""
     from . import ngram as _ngram_ops
 
@@ -214,7 +213,7 @@ def _prefix_sum_select(dev, letter_indices):
 
 
 def _use_occ_dot() -> bool:
-    """MXU occurrence reduce (recorded dead end) — see ops/_knobs.py."""
+    """Matmul occurrence reduce (opt-in) — see ops/_knobs.py."""
     from . import _knobs
 
     return _knobs.use_occ_dot()
@@ -230,7 +229,7 @@ def _occ_ones_vec(width: int):
 
 
 def _occ_dot_single(masked):
-    """(B,) int32 popcount sum via an MXU int8 matvec (popcounts <= 8)."""
+    """(B,) int32 popcount sum via an int8 matvec (popcounts <= 8)."""
     pc = lax.population_count(masked)
     return lax.dot_general(
         pc.astype(jnp.int8),
@@ -260,24 +259,8 @@ def _count_rows(dev, rows, local, letter_indices):
     return _milestone(dev, rows, letter_indices) + cnt.astype(jnp.uint32)
 
 
-import os
-
-
-def _use_pallas_rank() -> bool:
-    """Route the masked popcount through the fused Pallas kernel
-    (ops/rank_pallas.py) instead of the XLA elementwise formulation.
-    Bit-identical results. Read at call time so tests/users can toggle
-    AWFM_PALLAS_RANK after import (traced calls are cached per engine
-    program, so flip it before the first search on a given shape)."""
-    return os.environ.get("AWFM_PALLAS_RANK") == "1"
-
-
 def occurrence(dev, positions, letter_indices):
     """Batched occ(l, pos), inclusive of pos. letter_indices in [0, A]."""
-    if _use_pallas_rank():
-        from . import rank_pallas
-
-        return rank_pallas.occurrence(dev, positions, letter_indices)
     rows, local = _gather_rows(dev, positions)
     return _count_rows(dev, rows, local, letter_indices)
 
@@ -320,7 +303,7 @@ def backward_step(dev, start, end, letter_indices, active=None, check_valid=True
 # pack_pair_rows_from_blocks). After seeding, ranges are nearly always
 # narrower than a block, so start-1 and end share one pair row and the
 # step costs ONE row gather instead of the reference's two block fetches
-# (AwFmSearch.c:57-58) — measured 1.35-1.42x on TPU v5e. Queries whose
+# (AwFmSearch.c:57-58); the gain is not measured on the H100. Queries whose
 # range still spans past the pair window (rare: wide ranges right after
 # seeding in repeat-rich corpora) are FLAGGED, and the caller re-runs
 # just those through the classic two-gather step — results are exact
@@ -524,8 +507,8 @@ def letter_and_lf_at(dev, positions):
 
 def letter_and_lf_from_rows(dev, rows, local):
     """letter_and_lf_at's compute stage on already-gathered rows — the
-    slab-routed backtrace (ops/route.py) runs this inside its per-slab
-    scan so rows never materialize outside VMEM."""
+    slab-routed backtrace (ops/route.py) runs it on the rows its
+    per-slab scan gathered."""
     lett = letter_at_rows(dev, rows, local)
     is_sentinel = lett == dev.sentinel
     # clamp the sentinel for the selects below; its result is overridden.

@@ -2,10 +2,10 @@
 
 The reference is uint64 end-to-end (AwFmIndex.h:94-109: bwtLength,
 prefixSums, seed-table pointers, block baseOccurrences are all u64), so
-one index can exceed 2^32 positions. TPUs prefer 32-bit lanes, so this
-module represents every 64-bit quantity as a (hi, lo) pair of uint32
-arrays and propagates carries explicitly — the idiomatic TPU analogue of
-the C library's native u64 arithmetic.
+one index can exceed 2^32 positions. The device engine keeps 32-bit
+lanes, so this module represents every 64-bit quantity as a (hi, lo)
+pair of uint32 arrays and propagates carries explicitly — the device
+analogue of the C library's native u64 arithmetic.
 
 Row layout (pack_device_blocks64): strided bit-planes as in the 32-bit
 rows, by default PAIR-FUSED (each row carries blocks b and b+1,
@@ -19,8 +19,7 @@ Fusing the partner block costs nothing for nucleotide (the planes land
 in what was padding) and lets the post-seed backward step run as ONE
 row gather whenever start-1 and end share the 512-position window
 (backward_step64_pair; rank.backward_step_pair's contract), instead of
-two — the same measured ~1.4x one-gather win as the 32-bit path
-(experiments/wide_r2.py: 0.662 vs 0.919 s per 1M seeded 25-mers).
+two, as in the 32-bit path (the gain is not measured on the H100).
 Single-position ranks read the first-block half of the same rows.
 
 Amino pair rows cost +128 B/block over the compact 384 B layout;

@@ -1,13 +1,13 @@
 """Slab-routed row gathers: through the big-table gather wall.
 
-Measured mechanism (experiments/ab_r4_gathercliff.py, ab_r4_slabroute.py,
-docs/PERFORMANCE.md round 4): XLA lowers full-row gathers from operands
-<= ~64 MiB to a VMEM-resident form at ~2 ns/row, but any larger operand
-gathers at a flat ~9.6 ns/row issue-rate wall, independent of the
-touched working set. Sorting the batch's block ids and gathering each
-contiguous run from a <= 48 MiB ``dynamic_slice`` slab recovers 3.4x of
-the bare rate on a 2 GiB table and 2.0x on the full chained
-digram-shaped step (sort included, checksum-verified).
+Mechanism: on the accelerator this engine was first tuned on, XLA
+gathered full rows from small operands (tens of MiB) far faster than
+from large ones, whose gathers ran at a flat issue-rate wall whatever
+the touched working set. Sorting the batch's block ids and gathering
+each contiguous run from a bounded ``dynamic_slice`` slab recovered
+most of the small-operand rate, sort included. Whether the H100 has
+such a wall, and where, is not measured yet (ROADMAP C5); the
+thresholds below are not derived for it.
 
 This module is the production driver for that routing:
 
@@ -21,10 +21,9 @@ writes (a window's overhang rows belong to the NEXT slab and are
 overwritten by its in-order write). Inputs must be pre-sorted by block
 id; results come back in that sorted order — callers carry an
 origin-index payload through their routing sorts and restore once at
-the end of their loop (scatter-based reassembly measured 5x the sort
-cost, ab_r4_residual P1; per-step restore sorts and per-step payload
-gathers each measured ~0.5-1x the entire mono step,
-ab_r4_routed_kernels R0/R4 — pack everything into the sort operands).
+the end of their loop (scatter-based reassembly, per-step restore sorts
+and per-step payload gathers each cost a large share of a mono step, so
+everything rides the sort operands).
 
 Exactness: a slab run longer than the static ``cap`` truncates; those
 rows come back with ``covered=False`` and garbage content, and every
@@ -63,7 +62,7 @@ def _env_int(name: str, default: int) -> int:
 
 
 def route_mode() -> str:
-    """AWFM_ROUTE: 'auto' (default; measured break-even policy),
+    """AWFM_ROUTE: 'auto' (default; the break-even policy of plan_for),
     '1' force-on (tests), '0' off."""
     return os.environ.get("AWFM_ROUTE", "auto")
 
@@ -76,25 +75,18 @@ def plan_for(
     """Routing decision + geometry for one gather site (host-side; the
     batch size is a static shape, so this is a trace-time decision).
 
-    auto policy (v5e measurements, docs/PERFORMANCE.md round 4):
+    auto policy. Its thresholds were set on the accelerator this
+    engine was first tuned on and are NOT derived for the H100 (ROADMAP
+    C5); at chromosome scale it never routes there:
       - rows must be narrow (<= AWFM_ROUTE_MAX_ROW_BYTES, default 128):
-        the materialized (B, row_bytes) buffer's HBM write+read grows
-        with row width and cancels the gather win at 384 B — the hg38
-        digram step measured an exact wash (50.4 routed vs 50.3 mono
-        M rows/s) while the 128 B backtrace LF wins 2.28x
-        (ab_r4_routed_kernels v3). 256 B rows sit in between and are
-        batch-dependent: 0.98x at 1M rows, 1.33x at 4M
-        (ab_r5_route256) — production 256 B gathers (single-step count)
-        run at the 1M dispatch chunk, so the default stays 128;
-      - the table must be past the cliff (>= AWFM_ROUTE_MIN_BYTES,
-        default 192 MiB; the fast/slow step is at 64->128 MiB);
+        the materialized (B, row_bytes) buffer's write+read grows with
+        row width and cancels the gather win for wide rows;
+      - the table must be large (>= AWFM_ROUTE_MIN_BYTES, default
+        192 MiB);
       - the batch must amortize the per-step slab streaming: break-even
-        at batch ~ table_bytes/AWFM_ROUTE_MIN_RATIO (default 5000 —
-        ~290K rows on the hg38 narrow table, just under the measured
-        1.45x win at 512K; ab_r4_routed_kernels R2), floored at
-        AWFM_ROUTE_MIN_BATCH (256k).
-    Slabs are AWFM_ROUTE_SLAB_BYTES (48 MiB; measured equal to 64 MiB
-    and safer against VMEM co-residents); cap carries
+        at batch ~ table_bytes/AWFM_ROUTE_MIN_RATIO (default 5000),
+        floored at AWFM_ROUTE_MIN_BATCH (256k).
+    Slabs are AWFM_ROUTE_SLAB_BYTES (48 MiB); cap carries
     AWFM_ROUTE_CAP_SLACK % (25) over the uniform share.
     """
     mode = route_mode()
@@ -154,21 +146,17 @@ def routed_gather(table, blk_sorted, plan: RoutePlan):
     exceeded the static ``cap`` window (its content is then garbage and
     the caller must neutralize it — the digram step ORs ~covered into
     its ``bad`` fixup flag, the backtrace leaves uncovered rows
-    unstepped for the exactness net). This per-row flag REPLACED a
-    whole-batch `lax.cond` mono fallback: the cond alone measured ~10 ms
-    per 4M-row step (experiments/ab_r4_routed_kernels R4 L1 69.8 vs L1b
-    84.6 M rows/s), and uniform batches never overflow a 25%-slack cap,
-    so exactness via the callers' existing redo nets is strictly
-    cheaper.
+    unstepped for the exactness net). This per-row flag replaced a
+    whole-batch `lax.cond` mono fallback, which cost a large share of a
+    step; uniform batches never overflow a 25%-slack cap, so exactness
+    via the callers' existing redo nets is cheaper.
 
     Gather-ONLY routing: the scan body holds nothing but the sliced
     slab and a (cap, row_bytes) window write, so XLA keeps the slab
-    operand fast (the bare scan runs 138 M rows/s on a 4.33 GiB table
-    where the mono gather gets 72); compute runs ONCE on the returned
-    buffer at full-batch efficiency — the same compute inside the scan
-    measured ~3x slower (ab_r4_routed_kernels R1 compute-in-scan 32 vs
-    mono 50 M rows/s). The materialized buffer costs ~20 ms of HBM
-    write+read at 4M x 384 B against the ~45 ms gather saving.
+    operand fast; compute runs ONCE on the returned buffer at
+    full-batch efficiency (the same compute inside the scan was
+    several times slower). The materialized buffer costs one extra
+    write and read of (B, row_bytes).
     """
     b = blk_sorted.shape[0]
     n_rows = table.shape[0]

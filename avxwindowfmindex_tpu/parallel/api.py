@@ -2,7 +2,7 @@
 
 The reference's throughput API is an OpenMP parallel-for over 8-kmer
 chunks with lock-step query interleaving (AwFmParallelSearch.c:95-220).
-On TPU the whole batch runs as one device program; ``num_threads`` is
+Here the whole batch runs as batched device programs; ``num_threads`` is
 accepted for signature parity and ignored.
 
 A :class:`KmerSearchList` mirrors struct AwFmKmerSearchList

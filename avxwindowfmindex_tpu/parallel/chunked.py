@@ -1,9 +1,9 @@
 """Chunked-corpus indexing: databases beyond the uint32 device limit.
 
 The reference supports arbitrary 64-bit sequences by using uint64
-everywhere (at AVX2 speeds). The TPU engine keeps device positions
+everywhere (at AVX2 speeds). The device engine keeps device positions
 uint32 for bandwidth; databases larger than 2^32-1 positions (or larger
-than one chip wants to hold) are instead split into overlapping
+than one card wants to hold) are instead split into overlapping
 sub-indexes:
 
   - chunk i covers [i*chunk_bases, i*chunk_bases + chunk_bases

@@ -1,13 +1,14 @@
-"""Multi-chip distribution: shard_map data parallelism over the query axis.
+"""Multi-device distribution: shard_map data parallelism over the query axis.
 
 The reference's entire scaling story is an OpenMP thread pool on one
-node (AwFmParallelSearch.c:103). The TPU-native design (SURVEY.md §2.2):
+node (AwFmParallelSearch.c:103). The device design (SURVEY.md §2.2):
 
   - the index (letters/milestones/prefix-sums/seed-table/sampled-SA) is
     REPLICATED across the mesh (it is read-only during search);
   - the query batch is SHARDED over a 1-D "q" mesh axis;
   - count/range search needs no communication at all;
-  - hit merging uses an ``all_gather`` over ICI when a replicated result
+  - hit merging uses an ``all_gather`` over the device interconnect
+    (NVLink between the cards of one host) when a replicated result
     is wanted (the north-star collective), otherwise results stay
     sharded and stream back per-host.
 
@@ -314,9 +315,8 @@ class DistributedSearchEngine(SearchEngine):
                 # wide on-disk resolve stays host-routed (hi/lo file math)
                 return super().resolve_positions(bwt_positions)
             # on-disk SA: keep the backtrace mesh-sharded; only the
-            # final <=9-byte packed-SA reads run on host (VERDICT r3
-            # weak #4 — previously the whole locate tail serialized
-            # through the single-device path)
+            # final <=9-byte packed-SA reads run on host (the locate
+            # tail never serializes through a single device)
             if self.host_index is None or self.host_index.file_path is None:
                 raise ValueError(
                     "suffix array not in memory and no backing file to "
@@ -350,7 +350,7 @@ class DistributedSearchEngine(SearchEngine):
         return np.asarray(hits[:n], dtype=np.uint64)
 
     def count_replicated(self, kmers: Sequence[Union[str, bytes]]) -> np.ndarray:
-        """Counts merged to every device with all_gather over ICI."""
+        """Counts merged to every device with all_gather."""
         dev = self.dev
         mat, lengths, n = self.encode_kmers(kmers)
         if not self._seed_eligibility(mat, lengths).all():
@@ -368,9 +368,8 @@ class DistributedSearchEngine(SearchEngine):
 
             if _use_step_loop():
                 # per-step GSPMD programs instead of a monolithic scan
-                # (which takes minutes to compile on remote TPU
-                # backends); flag count + both count lanes fold into
-                # ONE readback
+                # (the step loop, as in SearchEngine); flag count + both
+                # count lanes fold into ONE readback
                 pair = dev.pair_fused and search64._use_pair_rows64()
                 s_hi, s_lo, e_hi, e_lo, bad = search64._ranges_steploop64(
                     dev, mat, lengths, True, pair, put=self._shard

@@ -2,7 +2,7 @@
 
 The reference's failure story is a return-code enum and an OpenMP atomic
 aggregate (AwFmIndex.h:132-138, AwFmParallelSearch.c:125-128) — on any
-worker's disk-read failure the whole batch aborts. The TPU-native
+worker's disk-read failure the whole batch aborts. This library's
 equivalent (SURVEY.md §2.2) retries deterministically: search is a pure
 function of (index, queries), so a failed shard can be re-executed —
 optionally after reloading the index from its backing file — with

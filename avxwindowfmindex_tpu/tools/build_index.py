@@ -18,7 +18,7 @@ import time
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="Build an AwFm-compatible .awfmi index (TPU-native build)"
+        description="Build an AwFm-compatible .awfmi index"
     )
     parser.add_argument("input", help="FASTA file (or raw sequence with --raw)")
     parser.add_argument("-f", "--output", required=True, help="output .awfmi path")
@@ -50,7 +50,7 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--auto-size", action="store_true",
-        help="size seed length to the active device's HBM with the "
+        help="size seed length to the active device's memory with the "
         "capacity planner (utils/capacity.py; the input file size is "
         "the corpus estimate). Overridden by an explicit -k.",
     )

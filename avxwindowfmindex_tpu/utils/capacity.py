@@ -1,10 +1,11 @@
-"""HBM capacity planner: size an index configuration to the chip.
+"""Device-memory capacity planner: size an index configuration to the card.
 
 The reference documents exactly this sizing guidance for its users —
 seed-table memory vs k, the suffix-array compression-ratio trade, and
-the in-memory-SA option (/root/reference/README.md:188-213). On TPU the
-budget is per-chip HBM and the knobs are richer (digram table, dense
-device-side SA, capacity modes), so the guidance becomes a planner:
+the in-memory-SA option (the reference's README.md:188-213). Here the
+budget is what the JAX allocator gives one process on the card, and the
+knobs are richer (digram table, dense device-side SA, capacity modes),
+so the guidance becomes a planner:
 
     plan = plan_capacity(num_bases, AlphabetType.DNA)
     cfg  = plan.index_configuration()          # -> IndexConfiguration
@@ -21,23 +22,22 @@ models/index.py, ops/ngram.py and ops/rank64.py; workspace estimated):
     sampled_sa   ceil(bwt/ratio) x 4 B narrow / 8 B wide, at the DENSER
                  of (config ratio, device_sa_ratio) when dense SA is on
     workspace    batch x (kmer_len + 96) B live query/range/compaction
-                 buffers + 256 MB XLA temp slack (measured envelope of
-                 the bench stages at 4M queries)
+                 buffers + 256 MB XLA temp slack
 
-Degradation ladder when the rich configuration does not fit (ordered by
-measured value per byte; docs/PERFORMANCE.md):
+Degradation ladder when the rich configuration does not fit. The order
+is the value per byte the earlier accelerator rounds measured; it is
+not measured on the H100 yet:
 
-    1. lower seed_k toward MIN_SEED_K   (k14->k13 costs ~4% count but
-                                         frees 1.6 GB at DNA)
-    2. drop the dense device SA         (costs ~26-36% locate_all)
-    3. drop the digram table            (costs ~27% count / range phase)
-    4. drop pair rows                   (costs ~2x single-step range)
+    1. lower seed_k toward MIN_SEED_K
+    2. drop the dense device SA
+    3. drop the digram table
+    4. drop pair rows
 
 Engine modes, in preference order (SURVEY.md §5 capacity story):
-    replicated     index fits per-chip HBM; query-sharded across the
+    replicated     index fits one card; query-sharded across the
                    mesh (parallel/dist.py). Wide layout auto-selected
                    for bwt >= 2^32.
-    range_sharded  index exceeds per-chip HBM but fits the mesh's
+    range_sharded  index exceeds one card but fits the mesh's
                    aggregate: blocks partitioned, psum rank
                    (parallel/range_sharded.py).
     chunked        narrow-kernel alternative for >= 2^32 corpora
@@ -52,46 +52,25 @@ from typing import Dict, Optional, Tuple
 
 from ..models import alphabet as alpha
 from ..models.config import AlphabetType
+from . import devices
 
-#: Per-chip HBM capacity by device kind (public chip specs, bytes).
-HBM_BYTES = {
-    "v5e": 16_000_000_000,
-    "v5p": 95_000_000_000,
-    "v4": 32_000_000_000,
-}
-
-#: Largest seed k the planner will pick. DNA 14 is the measured
-#: frontier (experiments/ab_r3_seedk_results.txt: monotone wins k12->14
-#: at 64M bases; k15's 8.6 GB table was never a measured win and sits
-#: deep in the slow-gather regime either way). Amino 6 caps the table
-#: at 20^6*8 = 512 MB.
+#: Largest seed k the planner will pick. DNA 14 is the largest k this
+#: program has measured a gain at (k15's 8.6 GB table never was); the
+#: choice is not measured on the H100 yet. Amino 6 caps the table at
+#: 20^6*8 = 512 MB.
 MAX_SEED_K = {AlphabetType.DNA: 14, AlphabetType.RNA: 14, AlphabetType.AMINO: 6}
 MIN_SEED_K = {AlphabetType.DNA: 10, AlphabetType.RNA: 10, AlphabetType.AMINO: 2}
 
 _XLA_SLACK_BYTES = 256 << 20
 
 
-def detect_hbm_bytes() -> Tuple[int, str]:
-    """Per-chip HBM of the active JAX device, (bytes, source-note)."""
-    try:
-        import jax
+def detect_budget_bytes(device=None) -> Tuple[int, str]:
+    """Allocator limit of the active JAX device, (bytes, source-note).
 
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:  # pragma: no cover - no backend at all
-        return HBM_BYTES["v5e"], "no JAX backend; assumed v5e"
-    # check the 16 GB variants FIRST: a "v5e" kind string without "lite"
-    # would otherwise match the generic v5 branch and be budgeted as a
-    # 95 GB v5p — the planner would then pick a config that OOMs a
-    # 16 GB chip. Unknown kinds also fall through to the small budget:
-    # underestimating HBM costs a denser seed table, overestimating
-    # costs the device.
-    if "lite" in kind or "v5e" in kind:
-        return HBM_BYTES["v5e"], f"detected {kind}"
-    if "v5p" in kind or "v5" in kind:
-        return HBM_BYTES["v5p"], f"detected {kind}"
-    if "v4" in kind:
-        return HBM_BYTES["v4"], f"detected {kind}"
-    return HBM_BYTES["v5e"], f"unknown device kind {kind!r}; assumed v5e"
+    Raises ``devices.UnknownDeviceError`` for a device kind without an
+    entry in the device-facts table, the CPU included."""
+    limit = devices.allocator_limit_bytes(device)
+    return limit, f"allocator limit {limit / 1e9:.2f} GB (memory_stats)"
 
 
 def component_bytes(
@@ -151,7 +130,7 @@ class CapacityPlan:
 
     num_bases: int
     alphabet: AlphabetType
-    hbm_bytes: int
+    hbm_bytes: int  # per-card allocator budget the plan was sized to
     n_devices: int
     engine: str  # "replicated" | "range_sharded"
     wide: bool
@@ -165,7 +144,7 @@ class CapacityPlan:
     index_bytes: int
     per_chip_bytes: int  # index share resident on one chip
     workspace: int
-    budget: int  # fit_fraction * hbm - workspace
+    budget: int  # fit_fraction * hbm_bytes - workspace
     fit_fraction: float
     notes: Tuple[str, ...]
 
@@ -227,17 +206,18 @@ def plan_capacity(
     """Pick seed_k / dense SA / digram / engine mode for the corpus.
 
     The degradation order (lower k, then drop dense SA, then digram,
-    then pair rows) follows the measured value-per-byte ladder in the
-    module docstring. ``device_sa_ratio=None`` disables the dense-SA
-    option entirely; ``fit_fraction`` is the share of HBM the resident
-    index may use after the workspace estimate is reserved (0.90
-    reproduces the measured hg38 envelope: 13.7 GB live on a 16 GB
-    v5e — docs/PERFORMANCE.md hg38 sections).
+    then pair rows) follows the ladder in the module docstring.
+    ``hbm_bytes`` is the per-card budget; by default it is the active
+    device's allocator limit (``detect_budget_bytes``).
+    ``device_sa_ratio=None`` disables the dense-SA option entirely;
+    ``fit_fraction`` is the share of that budget the resident index may
+    use after the workspace estimate is reserved (a margin for
+    fragmentation, not measured on the H100).
     """
     notes = []
     if hbm_bytes is None:
-        hbm_bytes, src = detect_hbm_bytes()
-        notes.append(f"HBM: {src}")
+        hbm_bytes, src = detect_budget_bytes()
+        notes.append(f"budget: {src}")
     bwt_length = num_bases + 1
     wide = bwt_length >= 2**32
     max_k = max_seed_k if max_seed_k is not None else MAX_SEED_K[alphabet]
@@ -257,8 +237,8 @@ def plan_capacity(
     budget = int(fit_fraction * hbm_bytes) - ws
     if budget <= 0:
         raise ValueError(
-            f"workspace estimate {ws} exceeds {fit_fraction:.0%} of HBM "
-            f"({hbm_bytes}); shrink the batch"
+            f"workspace estimate {ws} exceeds {fit_fraction:.0%} of the "
+            f"device budget ({hbm_bytes}); shrink the batch"
         )
 
     def build(cand, engine, chips):
@@ -287,7 +267,7 @@ def plan_capacity(
             if per_chip <= budget:
                 if engine == "range_sharded":
                     notes.append(
-                        "index exceeds one chip's HBM; blocks+SA "
+                        "index exceeds one card's budget; blocks+SA "
                         f"partitioned over {n_devices} devices"
                     )
                 if wide:

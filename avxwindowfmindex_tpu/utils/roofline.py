@@ -1,25 +1,24 @@
 """Roofline accounting: measured throughput vs gather/HBM ceilings.
 
-The reference has no profiling subsystem (SURVEY.md §5); the TPU build's
-north star requires reporting the rank/occurrence inner loop against
-per-chip HBM speed-of-light (BASELINE.md). The search pipeline is
+The reference has no profiling subsystem (SURVEY.md §5); this program
+reports the rank/occurrence inner loop against the card's peak
+device-memory bandwidth (utils/devices.py). The search pipeline is
 gather-bound, so the roofline is expressed two ways:
 
   - bytes: fused-row bytes moved per query vs peak HBM bandwidth
-    (always far below 1.0 — XLA row gathers are descriptor-bound well
-    below byte peak, which is exactly the headroom story);
+    (far below 1.0 for random row gathers);
   - rows:  row-gather descriptors per query vs a MEASURED gather rate
     for each table actually touched — the practical ceiling.
 
-Round-2 lesson (VERDICT r2, weak #1): a hardcoded rows-per-query model
-drifted from the engine it graded (it assumed 2 single-row gathers per
-extension letter while the bench ran digram + pair rows) and reported
-219% of its own ceiling. This version derives the row schedule from the
-ACTIVE engine configuration (ngram n, pair rows on/off, the compaction
-backtrace schedule) and takes per-table gather rates from a calibration
-micro-benchmark run in the same process on the same tables
-(bench.py `gather_calibration`), so fractions are ceilings by
-construction, not by assumption.
+A hardcoded rows-per-query model once drifted from the engine it graded
+(it assumed 2 single-row gathers per extension letter while the bench
+ran digram + pair rows) and reported 219% of its own ceiling. So the row
+schedule is derived from the ACTIVE engine configuration (ngram n, pair
+rows on/off, the compaction backtrace schedule), and the per-table
+gather rates must come from a calibration run in the same process on
+the same tables (bench.py ``_calibrate_gather_rates``): fractions are
+ceilings by construction, not by assumption. There are no default
+rates.
 
 Tables and their per-gather row bytes (nucleotide engine):
 
@@ -30,39 +29,9 @@ Tables and their per-gather row bytes (nucleotide engine):
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional
 
-
-@dataclasses.dataclass
-class ChipSpec:
-    name: str
-    hbm_gbps: float  # peak HBM bandwidth, GB/s (public chip specs)
-
-
-CHIPS = {
-    "v5e": ChipSpec("TPU v5e", 819.0),
-    "v5p": ChipSpec("TPU v5p", 2765.0),
-}
-
-# Fallback per-table gather rates (rows/s) when no calibration has been
-# run in-process: v5e measurements at the 64M-base bench scale
-# (experiments/ab_r3_gather*; see docs/PERFORMANCE.md). Reports built
-# from these carry calibrated=False.
-DEFAULT_RATES_V5E: Dict[str, float] = {
-    "single": 250e6,
-    "pair": 120e6,
-    "ngram_pair": 60e6,
-}
-
-
-def detect_chip() -> ChipSpec:
-    import jax
-
-    kind = jax.devices()[0].device_kind.lower()
-    if "v5p" in kind or ("v5" in kind and "lite" not in kind):
-        return CHIPS["v5p"]
-    return CHIPS["v5e"]
+from . import devices
 
 
 def range_phase_rows(
@@ -172,7 +141,7 @@ def report(
     row_bytes: Optional[Dict[str, int]] = None,
     rates: Optional[Dict[str, float]] = None,
     batch: int = 1 << 20,
-    chip: Optional[ChipSpec] = None,
+    chip: Optional[devices.DeviceSpec] = None,
     bt_routed_min_batch: Optional[int] = None,
 ) -> dict:
     """Roofline summary for a measured throughput on the active engine.
@@ -181,21 +150,25 @@ def report(
     walk per query — 0 for count, 1 for first-hit locate, and
     capacity/num_queries for full-hit-list locate (the schedule walks
     the padded capacity batch, so honesty requires the padded figure).
-    ``rates``: per-table measured gather rates (rows/s) from
-    bench.py's calibration stage; falls back to recorded v5e defaults
-    with calibrated=False.
+    ``rates``: per-table gather rates (rows/s) measured in the same
+    process (bench.py's calibration stage); required. ``chip``: the
+    device-facts entry whose peak bandwidth grades the bytes (default:
+    the active device's; an unknown kind raises).
     """
-    chip = chip or detect_chip()
+    if not rates:
+        raise ValueError(
+            "roofline.report needs gather rates measured in this process "
+            "(bench.py _calibrate_gather_rates); there are no defaults"
+        )
+    chip = chip or devices.detect()
     row_bytes = row_bytes or table_row_bytes(ngram_n=ngram_n)
-    calibrated = rates is not None
-    rates = rates or DEFAULT_RATES_V5E
 
     range_rows = range_phase_rows(
         kmer_len, seed_k, ngram_n=ngram_n, pair_rows=pair_rows
     )
     # backtrace rows split by which schedule passes the slab-routed
-    # gather serves (its bare rate beats the mono wall ~2x on big
-    # tables): the ceiling uses the ROUTED calibrated rate for those
+    # gather serves (its bare rate differs from the mono gather's):
+    # the ceiling uses the ROUTED calibrated rate for those
     # rows so the fraction stays an honest <= 1.0 share of what the
     # schedule's gathers could at best sustain
     use_routed = (
@@ -249,7 +222,6 @@ def report(
         # kmer_len == seed_k count: the seed table answers everything
         return {
             "chip": chip.name,
-            "calibrated": calibrated,
             "rows_per_query": 0.0,
             "bytes_per_query": 0.0,
             "gather_ceiling_qps": None,
@@ -258,10 +230,9 @@ def report(
             "fraction_of_hbm_sol": None,
         }
     ceiling_qps = 1.0 / total_secs
-    sol_qps = chip.hbm_gbps * 1e9 / total_bytes
+    sol_qps = chip.hbm_bytes_per_sec / total_bytes
     out = {
         "chip": chip.name,
-        "calibrated": calibrated,
         "rates_rows_per_sec": {
             t: round(r)
             for t, r in rates.items()

@@ -70,7 +70,7 @@ def test_backtrace_all_pair_equals_single(rng, ratio):
 
 
 def test_backtrace_pair_steploop_mode(rng, monkeypatch):
-    """The fused step-loop schedule (TPU production path) gives the same
+    """The fused step-loop schedule (the accelerator path) gives the same
     walk as the scan formulation."""
     _, index = _build(rng, 900, ratio=8)
     dev = index.to_device()

@@ -77,7 +77,7 @@ def test_single_chunk_passthrough(rng):
 def test_high_frequency_kmer_count(rng):
     # poly-A rich corpus: the counted kmers occur thousands of times and
     # straddle every boundary — count() must stay exact (and O(1)/kmer,
-    # not locate-derived; VERDICT r1 weak #5)
+    # not locate-derived)
     seq = bytearray(random_sequence(rng, 4000, AlphabetType.DNA))
     for i in range(0, 4000, 7):
         seq[i] = ord("A")

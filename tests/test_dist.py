@@ -1,7 +1,7 @@
 """Distributed (shard_map) search parity on the 8-device CPU mesh.
 
 The reference has nothing distributed to test (SURVEY.md §4); these are
-the multi-device tests the TPU design requires: sharded results must be
+the multi-device tests the device design requires: sharded results must be
 bit-identical to single-device results, at every mesh size.
 """
 
@@ -69,7 +69,7 @@ def test_count_replicated_allgather(built, rng):
 
 def test_sharded_locate_with_on_disk_sa(rng, tmp_path):
     """keep_suffix_array_in_memory=False under DistributedSearchEngine:
-    the backtrace must stay mesh-sharded (VERDICT r3 weak #4) with only
+    the backtrace must stay mesh-sharded with only
     the final packed-SA file reads on host, and hits must equal the
     in-memory single-device answer."""
     from unittest import mock
@@ -118,7 +118,7 @@ def test_mixed_eligibility_sharded(built, rng):
 
 
 def test_dist_steploop_matches(built, rng, monkeypatch):
-    # force the GSPMD step-loop path (default on TPU backends)
+    # force the GSPMD step-loop path (default on accelerator backends)
     import avxwindowfmindex_tpu.parallel.dist as dist_mod
 
     monkeypatch.setattr(dist_mod, "_use_step_loop", lambda: True)

@@ -219,7 +219,7 @@ ADVERSARIAL_FASTAS = {
 
 
 def test_adversarial_fasta_byte_identity(driver, tmp_path, rng):
-    """FastaVector-section fuzz (VERDICT r2 missing #1): degenerate
+    """FastaVector-section fuzz: degenerate
     FASTA shapes through the golden-driver byte-compare plus metadata
     and locate parity.
 

@@ -1,6 +1,6 @@
 """64-bit-capacity device path (ops/rank64.py, search64.py).
 
-Three layers of evidence, mirroring VERDICT r1 item 2:
+Three layers of evidence:
   1. path equality — on ordinary (< 2^32) indexes the wide path must be
      bit-identical to the 32-bit path for count and locate;
   2. carry math — a handcrafted DeviceIndex64 whose milestones/prefix
@@ -376,7 +376,7 @@ def test_pair_step_matches_classic_and_flags(rng):
 
 
 def test_wide_steploop_pair_matches_narrow(rng, monkeypatch):
-    """The TPU production path (step loop + pair rows + fixup) on the
+    """The accelerator path (step loop + pair rows + fixup) on the
     wide layout must equal the 32-bit engine, including on a repeat-rich
     corpus whose seeded ranges stay wider than the pair window (forcing
     the flagged re-run)."""

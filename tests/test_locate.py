@@ -285,8 +285,7 @@ def test_dense_device_sa_parity(rng, tmp_path):
 def test_densify_on_load_matches_build_time_dense(rng, tmp_path):
     """densify_device_sa(r) on a FILE-LOADED index must produce the
     exact device SA a build-time device_sa_ratio=r cut from the full
-    suffix array, and identical locate answers (VERDICT r3 #2;
-    reference analogue: the build-time-only in-memory-SA trade,
+    suffix array, and identical locate answers (reference analogue: the build-time-only in-memory-SA trade,
     /root/reference/README.md:207-213)."""
     from avxwindowfmindex_tpu import read_index_from_file
 

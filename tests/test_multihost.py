@@ -1,7 +1,7 @@
 """Multi-process (multi-host-style) search via jax.distributed.
 
 The reference has no distributed story at all; this validates the
-TPU-native one on a single machine: two OS processes form a jax
+device one on a single machine: two OS processes form a jax
 cluster (CPU backend, 4 virtual devices each), the index is replicated
 across the global mesh, each process feeds its process-local query
 shard, and the merged counts must equal the single-process answer.
@@ -69,8 +69,8 @@ print(f"proc {proc_id} OK")
 
 
 # Locate + wide (hi/lo-u32) layout across process boundaries
-# (VERDICT r2 weak #5: the count test alone left the multi-host
-# locate/merge story unexercised).
+# (the count test alone would leave the multi-host locate/merge story
+# unexercised).
 _WORKER_LOCATE = r"""
 import os, sys
 proc_id = int(sys.argv[1])

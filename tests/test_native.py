@@ -1,5 +1,7 @@
 """Native SA-IS parity vs the NumPy doubling implementation."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -130,3 +132,31 @@ def test_fasta_midline_cr_stripped(tmp_path):
         seq_n, md_n = hostlib.read_fasta(str(fasta))
         assert seq_n == seq_p
         np.testing.assert_array_equal(md_n.sequence_ends, md_p.sequence_ends)
+
+
+@pytest.mark.parametrize("kind", ["stale", "foreign"])
+def test_library_is_rebuilt_for_its_source_and_host(tmp_path, kind):
+    """A library built from other sources never loads in place of this
+    one's (its file name is keyed to the source's content, the flags and
+    the host), and a file at the keyed name that does not load is
+    rebuilt rather than trusted."""
+    src = tmp_path / "awfm_host.cpp"
+    src.write_bytes(open(hostlib._SRC, "rb").read())
+    build = tmp_path / "build"
+    first = hostlib.lib_path(str(src), str(build))
+    if kind == "stale":
+        # an old build sits beside the source, newer than it, under the
+        # old source's key; editing the source must move to a new key
+        assert hostlib.open_library(str(src), str(build)) is not None
+        src.write_bytes(src.read_bytes() + b"\n// edited\n")
+        path = hostlib.lib_path(str(src), str(build))
+        assert path != first and not os.path.exists(path)
+    else:
+        # a file copied in from elsewhere (here: not a library at all)
+        path = first
+        os.makedirs(build)
+        with open(path, "wb") as fh:
+            fh.write(b"not an ELF file")
+    lib = hostlib.open_library(str(src), str(build))
+    assert lib is not None and hasattr(lib, "awfm_suffix_array")
+    assert open(path, "rb").read(4) == b"\x7fELF"

@@ -139,7 +139,7 @@ def test_invalid_n(rng):
 @pytest.mark.parametrize("fuse", ["1", "2", "3"])
 @pytest.mark.parametrize("n", [2, 3])
 def test_steploop_fused_matches_scan(rng, monkeypatch, n, fuse):
-    # the step-loop + fusion path normally runs only on TPU backends;
+    # the step-loop + fusion path normally runs only on accelerator backends;
     # force it here and compare against the scan path
     import avxwindowfmindex_tpu.search as search_mod
 

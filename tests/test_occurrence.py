@@ -46,8 +46,7 @@ def test_u32_lane_rank_identical(rng, alphabet, monkeypatch, knob):
     """Alternate single-letter kernel formulations must be bit-identical
     to the byte-lane default across occurrence, the fused pair-row step,
     and the single-position pair lookup, for both alphabets:
-    AWFM_RANK_U32 (u32-lane match/mask/popcount — measured slower on
-    chip, recorded dead end, experiments/ab_r3_u32lanes_results.txt)
+    AWFM_RANK_U32 (u32-lane match/mask/popcount, opt-in)
     and AWFM_MS_WSUM (weighted-byte-sum milestone select)."""
     seq = random_sequence(rng, 3000, alphabet)
     index = create_index(seq, IndexConfiguration(4, 2, alphabet))

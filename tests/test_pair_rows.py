@@ -3,12 +3,11 @@
 The pair step is exact only while a query's range fits its 512-position
 pair window; wider ranges are flagged on device and re-run through the
 classic two-gather step (search._fixup_flagged). These tests force the
-TPU step-loop path on CPU and attack exactly that machinery:
+accelerator step-loop path on CPU and attack exactly that machinery:
 
   - repeat-rich sequences whose seed ranges stay wide for several steps
     (near-certain flagging);
-  - mixed-length (masked) batches — the steploop branch VERDICT r1
-    called untested;
+  - mixed-length (masked) batches — the steploop's masked branch;
   - amino batches (256-position blocks, 512 B pair rows);
   - the AWFM_PAIR_ROWS=0 escape hatch.
 """

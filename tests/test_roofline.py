@@ -1,8 +1,11 @@
 """Roofline accounting sanity tests (engine-parameterized model)."""
 
-import numpy as np
+import pytest
 
-from avxwindowfmindex_tpu.utils import roofline
+from avxwindowfmindex_tpu.utils import devices, roofline
+
+H100 = devices.lookup("NVIDIA H100 80GB HBM3")
+RATES = {"single": 250e6, "pair": 120e6, "ngram_pair": 60e6}
 
 
 def test_range_phase_rows_digram_pair():
@@ -49,9 +52,9 @@ def test_report_fractions_are_ceilings():
         locate_positions_per_query=1.0,
         row_bytes=row_bytes,
         rates=rates,
-        chip=roofline.CHIPS["v5e"],
+        chip=H100,
     )
-    assert rep["calibrated"]
+    assert rep["chip"] == H100.name
     assert rep["fraction_of_gather_ceiling"] <= 1.0
     assert 0 < rep["fraction_of_hbm_sol"] < 0.2
     assert set(rep["phases"]) == {"range", "backtrace"}
@@ -62,7 +65,7 @@ def test_report_fractions_are_ceilings():
     rep2 = roofline.report(
         ceiling, kmer_len=25, seed_k=12, ratio=8, ngram_n=2,
         pair_rows=True, locate_positions_per_query=1.0,
-        row_bytes=row_bytes, rates=rates, chip=roofline.CHIPS["v5e"],
+        row_bytes=row_bytes, rates=rates, chip=H100,
     )
     assert abs(rep2["fraction_of_gather_ceiling"] - 1.0) < 0.01
 
@@ -72,7 +75,7 @@ def test_report_self_consistency_count_vs_locate():
     rows), and rows/bytes must grow with the locate phase."""
     kw = dict(
         kmer_len=25, seed_k=12, ratio=8, ngram_n=2, pair_rows=True,
-        chip=roofline.CHIPS["v5e"],
+        chip=H100,
         rates={"single": 250e6, "pair": 120e6, "ngram_pair": 60e6},
         row_bytes={"single": 128, "pair": 256, "ngram_pair": 384},
     )
@@ -89,7 +92,7 @@ def test_report_zero_gather_workload():
     report an unbounded roofline, not divide by zero."""
     out = roofline.report(
         1e6, kmer_len=12, seed_k=12, ratio=8, ngram_n=1,
-        chip=roofline.CHIPS["v5e"],
+        chip=H100, rates=RATES,
         row_bytes={"single": 128, "pair": 256},
     )
     assert out["rows_per_query"] == 0.0
@@ -97,19 +100,42 @@ def test_report_zero_gather_workload():
     # locate still walks the backtrace schedule per position
     out2 = roofline.report(
         1e6, kmer_len=12, seed_k=12, ratio=8, ngram_n=1,
-        locate_positions_per_query=1.0, chip=roofline.CHIPS["v5e"],
+        locate_positions_per_query=1.0, chip=H100, rates=RATES,
         row_bytes={"single": 128, "pair": 256},
     )
     assert out2["rows_per_query"] > 8.0
 
 
-def test_uncalibrated_fallback_flagged():
+@pytest.mark.parametrize("rates", [None, {}], ids=["none", "empty"])
+def test_report_without_rates_raises(rates):
+    """There are no default gather rates: a report needs rates measured
+    in the same process."""
+    with pytest.raises(ValueError, match="measured"):
+        roofline.report(
+            1e6, kmer_len=25, seed_k=12, ratio=8, ngram_n=2, chip=H100,
+            rates=rates,
+            row_bytes={"single": 128, "pair": 256, "ngram_pair": 384},
+        )
+
+
+def test_report_on_cpu_device_raises():
+    """Without an explicit chip the report grades against the active
+    device's peak, and the CPU backend has none."""
+    with pytest.raises(devices.UnknownDeviceError):
+        roofline.report(
+            1e6, kmer_len=25, seed_k=12, ratio=8, ngram_n=2, rates=RATES,
+            row_bytes={"single": 128, "pair": 256, "ngram_pair": 384},
+        )
+
+
+def test_hbm_speed_of_light_uses_device_peak():
     rep = roofline.report(
-        1e6, kmer_len=25, seed_k=12, ratio=8, ngram_n=2,
-        chip=roofline.CHIPS["v5e"],
-        row_bytes={"single": 128, "pair": 256, "ngram_pair": 384},
+        1e6, kmer_len=25, seed_k=12, ratio=8, ngram_n=1, pair_rows=True,
+        chip=H100, rates=RATES, row_bytes={"single": 128, "pair": 256},
     )
-    assert rep["calibrated"] is False
+    # 13 one-gather pair steps of 256 B each per count query
+    assert rep["bytes_per_query"] == 13 * 256
+    assert rep["hbm_speed_of_light_qps"] == round(3.35e12 / (13 * 256))
 
 
 def test_table_row_bytes_matches_device_layout():
